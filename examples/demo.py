@@ -17,7 +17,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
     ap.add_argument("--out-dir", default="/tmp/stereo_demo")
     ap.add_argument("--size", default="192x256")
     ap.add_argument("--disp", type=int, default=32)

@@ -3,7 +3,7 @@
     python examples/serving.py [--cpu] [--pipeline ad_census] [--batch 4]
 
 The production shape of the engine: the native threaded loader decodes
-PGM pairs on C++ worker threads while the TPU computes the previous
+PGM pairs on C++ worker threads while the GPU computes the previous
 batch (`utils.native.PairLoader`), `models.batch.serve_pairs` batches
 them through one compiled program (`lax.map` holds single-pair
 throughput — see README), and normalized disparity PNGs stream out.
@@ -21,7 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of the GPU")
     ap.add_argument("--pipeline", default="ad_census")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--pairs", type=int, default=10)

@@ -5,7 +5,7 @@
 // for both views, cross-arm growth, per-pixel arm-rectangle mean
 // aggregation, dual WTA.  Same per-pixel loop structure and data layout
 // ([row][col][disp]) as the reference so the measured MPix*disp/s is an
-// honest stand-in for the unpublished upstream numbers (BASELINE.md).
+// honest stand-in for the unpublished upstream numbers.
 //
 // Single-threaded, like AD-CensusV1 as committed (its .vcxproj does not
 // enable OpenMP; the pragmas in other projects are racy anyway, SURVEY §2).

@@ -1,6 +1,6 @@
 // Cross-implementation parity baseline: independent C++ re-implementations
-// of the five ACTIVE reference paths (VERDICT r1 item 2) and of the
-// CANONICAL AD-Census family (VERDICT r4 item 3).
+// of the five ACTIVE reference paths and of the
+// CANONICAL AD-Census family.
 //
 //   sad       SAD/SADmain.cpp:66        (left map, uniqueness WTA)
 //   ncc       NCC/NCC_main.cpp:33       (interior argmax)
@@ -23,8 +23,8 @@
 // both sides deliberately fix: clamped borders instead of OOB reads, the
 // census out-of-image zero bit, the right-arm col=_row fix, etc.).  The
 // point of this program is that a SECOND, loop-structured implementation of
-// the same spec agrees with the TPU engine on end-to-end disparity maps —
-// the accuracy-parity evidence BASELINE.md's north star asks for.
+// the same spec agrees with the JAX engine on end-to-end disparity maps —
+// the accuracy-parity evidence the engine's parity target asks for.
 //
 // Usage: parity_baseline <pipeline> <rows> <cols> <disp> <L.u8> <R.u8> <out_prefix>
 //   Reads rows*cols uint8 per image; writes <out_prefix>.left.f32 (always),

@@ -1,4 +1,4 @@
-// Timed CPU baselines for ALL FIVE reference pipelines (VERDICT r2 item 1).
+// Timed CPU baselines for ALL FIVE reference pipelines.
 //
 // Independent re-implementations (no code taken from the reference) of each
 // project's ACTIVE path with the reference's PER-PIXEL LOOP STRUCTURE —
@@ -31,7 +31,7 @@
 //
 // Usage: ./timing_baseline <pipeline> [rows cols disp iters threads]
 // Prints ONE JSON line: metric, MPixDisp/s (= rows*cols*disp / best-of-
-// iters seconds — the same accounting as bench.py's TPU numerator),
+// iters seconds — the same accounting as bench.py's device numerator),
 // seconds, iters, threads, checksum.
 
 #include <algorithm>

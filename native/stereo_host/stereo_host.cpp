@@ -1,6 +1,6 @@
 // Native host runtime for stereo_match_traditional_tpu.
 //
-// TPU-native replacement for the reference's native L0 layer (OpenCV
+// Replacement for the reference's native L0 layer (OpenCV
 // imread/cvtColor/copyMakeBorder/normalize/medianBlur used by every driver,
 // e.g. SAD/SADmain.cpp:27-48, ASW/ASWeight.cpp:32-57, CBLSM/CBLSM.cpp:16-25):
 // the device computes (JAX/XLA/Pallas); this library covers the host side —
@@ -233,7 +233,7 @@ int smt_read_pfm(const char* path, float* buf, int64_t buf_size, int* h,
   }
   // Parse the scale token manually: fscanf("%lf") is locale-sensitive — a
   // comma-decimal LC_NUMERIC would parse '-1.0' as '-1', leave '.0'
-  // unconsumed, and silently misalign the raster (ADVICE r2).  Only the
+  // unconsumed, and silently misalign the raster.  Only the
   // sign (endianness) and non-zero-ness of the scale matter here.
   char tok[64];
   int ti = 0, c;

@@ -94,9 +94,10 @@ class ASWConfig:
     median_first: int = 5            # ASWeight.cpp:74
     median_second: int = 3           # ASWeight.cpp:78
     run_post: bool = True            # ASWeight.cpp:66-78 (active)
-    use_pallas: Optional[bool] = None  # None = auto (Pallas kernel on TPU,
-                                     # jnp scan elsewhere); the kernel is
-                                     # ~2.8x faster on-chip (kernels/asw_pallas)
+    use_pallas: Optional[bool] = None  # None = auto (the Triton kernel,
+                                     # ops/kernels/asw_pallas, on the GPU;
+                                     # the jnp scan elsewhere); True off
+                                     # the GPU raises
     approx: str = "none"             # 'none' (exact, reference parity) |
                                      # 'grid' (opt-in intensity-binned
                                      # bilateral grid, non-parity — see
@@ -125,10 +126,10 @@ class ScanlineConfig:
     ``penalty_scale`` (opt-in, NON-PARITY — same template as the ASW
     ``approx='grid'`` flag): the reference's P1=10/P2=150
     (`AD-CensusV1/main.cpp:28-29`) are calibrated for its 8-bit/D=60
-    workload and over-smooth at serving disparity ranges (measured bad-2.0
-    0.325 at 720p/D=128, BASELINE.md).  ``None`` (default) keeps the exact
-    reference penalties; ``'auto'`` scales both by ``60 / disp_range``
-    (the reference calibration point, `main.cpp:24`); a float multiplies
+    workload and over-smooth at serving disparity ranges.  ``None``
+    (default) keeps the exact reference penalties; ``'auto'`` scales both
+    by ``60 / disp_range`` (the reference calibration point,
+    `main.cpp:24`); a float multiplies
     both directly.  Matches the adaptive-P2 *intent* of
     `ScanlineOptimizer.h:171` extended to the range dimension.
     """

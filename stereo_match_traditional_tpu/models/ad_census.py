@@ -129,8 +129,8 @@ def ad_census_pipeline(
         }
         if canonical:
             # the canonical post re-enters from saved stages only with the
-            # left arm maps (region-voting support regions, VERDICT r2
-            # item 7); the rule that produced them is cfg.cross_params
+            # left arm maps (region-voting support regions); the rule
+            # that produced them is cfg.cross_params
             for k in ("left", "right", "up", "down"):
                 stages[f"arms_left_{k}"] = getattr(arms_l, k)
         return result, stages
@@ -147,13 +147,11 @@ def irv_auto_d_chunk(h: int, w: int, disp_range: int,
     monolithic histogram is 8.5 GB and cannot run on one chip.
 
     The 256 MB default is sized for the FUSED pipeline, where the
-    histogram shares the chip with band volumes.  When the post runs as
+    histogram shares the device with band volumes.  When the post runs as
     its own program (the staged 4K canonical pattern,
-    `experiments/_r5_canon_staged.py`) bigger budgets pay off directly —
-    fewer prefix-sum sweeps per iteration, same bits (round-5 sweep at
-    4K/D=256, identical checksums): d_chunk 8 -> 66.4 s, 16 -> 49.5,
-    32 -> 36.0, 64 -> 14.6, 128 -> 7.4.  Pass ``budget_bytes=4.3e9``
-    there (two chunks at D=256).
+    `parallel.streamed_canonical_staged`) bigger budgets mean fewer
+    prefix-sum sweeps per iteration, same bits — e.g.
+    ``budget_bytes=4.3e9`` (two chunks at 4K/D=256).
 
     The chunk rounds DOWN to a power of two: ragged chunk counts
     interact badly with the blocked cumsum's padding (d_chunk=129 at 4K
@@ -175,8 +173,8 @@ def ad_census_post_canonical(disp_l, disp_r, agg_l, arms_l, cfg: ADCensusConfig,
     """Canonical post chain for the `cross_two_pass` (ADCensusOption) mode:
     LR check at ``lrcheck_thres`` -> iterative region voting fill ->
     optional discontinuity adjustment -> median.  Implements the semantics
-    the vendored `adcensus_types.h:72-75` fields declare (VERDICT r1
-    item 9); each stage is gated by its canonical do_* flag.
+    the vendored `adcensus_types.h:72-75` fields declare; each stage is
+    gated by its canonical do_* flag.
 
     ``irv_d_chunk`` bounds the voting histogram's memory (exact — see
     :func:`post.iterative_region_voting`); the streamed executor sets it so

@@ -7,6 +7,10 @@ import jax.numpy as jnp
 from stereo_match_traditional_tpu.config import ASWConfig
 from stereo_match_traditional_tpu.models.base import StereoResult
 from stereo_match_traditional_tpu.ops import post, volume, wta
+from stereo_match_traditional_tpu.ops.kernels import (
+    asw_volume_pallas,
+    resolve_use_pallas,
+)
 from stereo_match_traditional_tpu.utils.profiling import stage_scope
 
 
@@ -88,16 +92,10 @@ def asw_pipeline(
             return result, {"cost_left": vol_l, "cost_right": vol_r}
         return result
 
-    use_pallas = cfg.use_pallas
-    if use_pallas is None:
-        import jax
-
-        use_pallas = jax.default_backend() == "tpu"
     with stage_scope("cost_volume"):
         if cfg.approx == "grid":
             # opt-in constant-time approximation (non-parity; see
-            # volume.asw_volume_approx_grid and BASELINE.md for the
-            # measured bad-2.0 delta)
+            # volume.asw_volume_approx_grid)
             vol_l = volume.asw_volume_approx_grid(
                 left, right, bins=cfg.approx_bins, **kw
             )
@@ -105,9 +103,7 @@ def asw_pipeline(
             raise ValueError(
                 f"unknown ASW approx {cfg.approx!r}; expected 'none' or 'grid'"
             )
-        elif use_pallas:
-            from stereo_match_traditional_tpu.ops.kernels import asw_volume_pallas
-
+        elif resolve_use_pallas(cfg.use_pallas):
             vol_l = asw_volume_pallas(left, right, view="left", **kw)
         else:
             vol_l = volume.asw_volume(left, right, **kw)

@@ -2,16 +2,14 @@
 
 The reference processes exactly one hard-coded pair per run
 (`SAD/SADmain.cpp:27-28` et al.).  For production serving the engine maps
-any pipeline over a batch axis (one `vmap`, still a single XLA program, so
-the MXU/VPU see batched work) and overlaps host decode with device compute
-through the native threaded pair loader (`utils/native.PairLoader`).
+any pipeline over a batch axis (one program for the whole batch) and
+overlaps host decode with device compute through the native threaded pair
+loader (`utils/native.PairLoader`).
 
-Measured guidance (v5e, Teddy workload): `lax.map` batching (the default)
-holds single-pair throughput at any batch size (batch 8: 80.6 ms = 10.1
-ms/pair, 1,005 MPixDisp/s, equal to batch 1), while vmap batches the SAT
-gather operands past the ~110 MB on-chip fast-source cliff and runs 2.5x
-slower (batch 8: 25.1 ms/pair).  Use ``method='vmap'`` only for small
-images / window pipelines dominated by fixed per-op overhead.
+`lax.map` batching (the default) runs the examples one after another
+inside the program, so each keeps single-pair memory use; ``vmap`` fuses
+the batch into every op and multiplies the gather sources by the batch.
+Which wins on the GPU at serving sizes is ROADMAP speed item 6.
 """
 
 from __future__ import annotations
@@ -32,12 +30,10 @@ def batched_pipeline(name: str, cfg=None, method: str = "map",
     result field batched along axis 0.
 
     ``method='map'`` (default) runs examples sequentially inside one XLA
-    program (`lax.map`): each example's SAT gathers keep their source
-    on-chip, which on v5e beats vmap by 2.4x at batch 8 on the flagship
-    (vmap batches the gather operand past the ~110 MB fast-source cliff —
-    see `aggregate._rect_sums_shared_bounds`).  ``method='vmap'`` fuses the
-    batch into every op — better only for small images / window pipelines
-    dominated by fixed per-op overhead.
+    program (`lax.map`), so each example's SAT gathers keep single-pair
+    source sizes (see `aggregate._rect_sums_shared_bounds`).
+    ``method='vmap'`` fuses the batch into every op, multiplying those
+    sources by the batch.
 
     ``mesh``: batch-data-parallel scale-out — the batch axis shards over
     ``mesh[axis_name]`` (each device runs its examples with the chosen

@@ -28,7 +28,7 @@ def get_pipeline(name: str):
 
 def finish_from_volumes(name: str, vol_l, vol_r, cfg, arms_left=None):
     """Re-enter a pipeline at the WTA stage from saved stage volumes
-    (SURVEY.md §5 "any stage re-entrant"; VERDICT r1 item 7).
+    (SURVEY.md §5 "any stage re-entrant").
 
     ``vol_l``/``vol_r`` are the ``aggregated_left``/``aggregated_right``
     (or ``cost_*`` for pipelines without aggregation) arrays a
@@ -39,9 +39,9 @@ def finish_from_volumes(name: str, vol_l, vol_r, cfg, arms_left=None):
     The canonical ad_census mode (``aggregation='cross_two_pass'`` with
     ``run_post``) additionally needs ``arms_left`` — the left arm maps its
     region-voting post fills from, saved by ``return_stages`` /
-    ``--save-stages`` as ``arms_left_{left,right,up,down}`` (VERDICT r2
-    item 7).  Pass an `ops.aggregate.Arms`, a 4-tuple in that field order,
-    or a dict with those keys.
+    ``--save-stages`` as ``arms_left_{left,right,up,down}``.  Pass an
+    `ops.aggregate.Arms`, a 4-tuple in that field order, or a dict with
+    those keys.
     """
     import jax.numpy as jnp
 

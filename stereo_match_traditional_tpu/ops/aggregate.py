@@ -95,12 +95,9 @@ def _arm_one_direction(
         jnp.arange(1, n + 1) <= cfg.sec_length, float(cfg.tao1), float(cfg.tao2)
     ).reshape(n, 1, 1)
     ok = inb & (diff <= tao)
-    # Negative result (round 3): replacing cumprod+sum with a single
-    # argmin-for-first-False pass measures FASTER standalone (0.82 ->
-    # 0.56 ms per image on v5e) but SLOWER inside the fused flagship
-    # program (9.80 -> 9.92 ms e2e) — XLA fuses the cumprod chain into
-    # the shift producers, while the argmin reduction forces a separate
-    # materialization.  Keep the in-context optimum.
+    # Leading run of True: cumprod + sum lets XLA fuse the chain into the
+    # shift producers (an argmin-for-first-False reduction would
+    # materialize separately).
     leading = jnp.sum(jnp.cumprod(ok.astype(jnp.int32), axis=0), axis=0)
 
     # min-1 rule: first offset failed the threshold (not the border) and the
@@ -214,11 +211,9 @@ def canonical_cross_arms(
 # Above this length the dense [n, n] triangle's O(n^2) MACs dominate
 # (n=3841 is 23k flops/element at precision HIGHEST); switch to a two-level
 # block decomposition: dense triangles inside blocks + a cumsum of block
-# sums broadcast back.  At Teddy/720p widths the dense triangle stays
-# (round-5 sweep: forcing blocked at 720p is -2.7% at best and churns
-# summation order — not adopted).  Block 256 in the n>2048 regime is a
-# measured -8.7% on the 4K canonical cross leg (warm 25.3 -> 23.1 s,
-# round 5); last-ulp summation-order change at 4K-class widths only.
+# sums broadcast back.  At Teddy/720p widths the dense triangle stays, so
+# the summation order changes (last ulp) at 4K-class widths only.  Both
+# constants were chosen on an earlier accelerator (ROADMAP design item 3).
 _CUMSUM_DENSE_MAX = 2048
 _CUMSUM_BLOCK = 256
 
@@ -227,10 +222,10 @@ def _mxu_cumsum(x: jax.Array, axis: int) -> jax.Array:
     """Inclusive cumsum along ``axis`` (-1 or -2) as a triangular matmul.
 
     ``jnp.cumsum``'s log-shift lowering re-reads the operand ~log2(n)
-    times (measured 2.36 ms for both axes of a Teddy [60, 376, 451] SAT);
-    one [n, n] upper-triangular contraction on the MXU streams it once
-    (0.64 ms).  precision HIGHEST (the f32-faithful multi-pass path) —
-    accumulation order differs from cumsum at the last ulp only.
+    times; one [n, n] upper-triangular contraction streams it once.
+    Precision HIGHEST (float32, never TF32 or bf16) — accumulation order
+    differs from cumsum at the last ulp only.  Whether the matrix form
+    pays on the GPU is ROADMAP speed item 3.
 
     Lengths above ``_CUMSUM_DENSE_MAX`` (4K widths) use the two-level
     blocked form — O(block) instead of O(n) MACs per element.
@@ -272,10 +267,9 @@ def _sat(x: jax.Array) -> jax.Array:
     bad-pixel-rate parity budget (SURVEY.md §4); revisit with compensated
     sums if volumes grow to unnormalized SAD magnitudes at 4K sizes.
 
-    The cumsums run as triangular matmuls on the MXU
-    (:func:`_mxu_cumsum`): SAT 2.36 -> 0.64 ms at Teddy size.  Summation
-    order differs from cumsum in the last-ulp rounding, inside the stated
-    SAT precision budget.
+    The cumsums run as triangular matmuls (:func:`_mxu_cumsum`).
+    Summation order differs from cumsum in the last-ulp rounding, inside
+    the stated SAT precision budget.
     """
     c = _mxu_cumsum(_mxu_cumsum(x, -1), -2)
     c = jnp.pad(c, [(0, 0)] * (x.ndim - 2) + [(1, 0), (1, 0)])
@@ -292,20 +286,14 @@ def _rect_gather(sat: jax.Array, i0, i1, j0, j1) -> jax.Array:
     )
 
 
-# Gathers run ~4.7x faster when the source array fits on-chip (measured
-# cliff between 108 and 128 MB on v5e — the 128 MB VMEM minus overheads);
-# above this the row-chunked source path engages (requires a static arm cap).
+# Gather-source chunking for the rect corner picks (requires a static arm
+# cap): above _GATHER_CHUNK_MIN_BYTES the picks run per haloed chunk of
+# the SAT, targeting _GATHER_CHUNK_TARGET_BYTES per chunk but keeping the
+# band >= 2x the halo (a band below the halo re-reads the source many
+# times over) and never exceeding _GATHER_FAST_SRC_BYTES.  The sizes were
+# chosen on an earlier accelerator's on-chip memory; whether chunking pays
+# on the GPU is ROADMAP design item 3.
 _GATHER_FAST_SRC_BYTES = 100 * 1024 * 1024
-
-# Round-4 measured refinement (rect corner picks): even sources well under
-# the 100 MB cliff pick faster from ~24 MB haloed chunks — Teddy no-DCE
-# e2e: cblsm 13.70 -> 12.52 ms, flagship 9.66 -> 8.68 ms, bit-identical.
-# But chunks must not shrink into halo-dominated re-reads: at 720p/D=128 a
-# flat 24 MB limit collapsed the band below the halo (8-col chunks, ~10x
-# source amplification) and regressed 87.9 -> 169.7 ms.  Rule: engage
-# chunking above _GATHER_CHUNK_MIN_BYTES, target _GATHER_CHUNK_TARGET_BYTES
-# per chunk but keep the band >= 2x the halo, never exceeding the 100 MB
-# chunks serving sizes were swept at (720p unchanged at 87.9 ms).
 _GATHER_CHUNK_MIN_BYTES = 32 * 1024 * 1024
 _GATHER_CHUNK_TARGET_BYTES = 24 * 1024 * 1024
 
@@ -316,22 +304,14 @@ def _rect_sums_shared_bounds(
     """Inclusive rectangle sums of every d-slice with bounds shared across
     the disparity axis (arms depend on the pixel only).
 
-    TPU gather layout: the [D, Hp, Wp] SAT is viewed as ``[(Hp*Wp), D]`` so
-    every gathered element is a contiguous D-row — the TPU-friendly gather
-    shape — instead of D x H x W scalar picks (XLA lowers multi-dim
-    per-element gathers to the scalar core; ~25% faster end to end on v5e;
-    keeping the SAT cumsums in [D, H, W] avoids padding D onto the 128-lane
-    axis, which measured slower).
+    Gather layout: the [D, Hp, Wp] SAT is viewed as ``[(Hp*Wp), D]`` so
+    every gathered element is a contiguous D-row instead of D x H x W
+    scalar picks; the SAT cumsums themselves stay in [D, H, W].
 
     ``max_span``: static bound on the arm lengths.  When given and the flat
     SAT exceeds ``_GATHER_CHUNK_MIN_BYTES``, the four corner gathers run
     per row-chunk against a ``max_span``-haloed slice of the *global* SAT
-    — bit-identical picks, measured 61 -> 30 ms at 720p/D=128 (gathers
-    from an HBM-resident source are pick-latency-bound: 11.7 vs 2.4 ms for
-    the same 921600 picks when the source fits).  Chunk sizing: ~24 MB
-    targets with a 2x-halo band floor and a 100 MB cap (round-4 table at
-    the constants) — Teddy-size volumes chunk too (flagship -10%), serving
-    sizes keep their swept 100 MB chunks.
+    — bit-identical picks (chunk sizing at the constants above).
     """
     d = vol.shape[0]
     sat = _sat(vol)                                        # [D, Hp, Wp]
@@ -343,8 +323,7 @@ def _rect_sums_shared_bounds(
         halo = 2 * max_span + 1
         w_out = out_shape[1]
         # target ~24 MB chunks, floored so the band stays >= 2x the halo
-        # (bounds halo re-reads) and capped at the swept 100 MB serving
-        # chunk size — see the constants' measured table
+        # (bounds halo re-reads) and capped at _GATHER_FAST_SRC_BYTES
         row_target = min(_GATHER_FAST_SRC_BYTES,
                          max(_GATHER_CHUNK_TARGET_BYTES, 4 * d * wp * 3 * halo))
         col_target = min(_GATHER_FAST_SRC_BYTES,
@@ -373,7 +352,7 @@ def _rect_sums_shared_bounds(
         # wide-and-short shapes (streamed 4K bands: 347 rows x 3841 cols x
         # D=256 — a single haloed row window is 276 MB): chunk output
         # COLUMNS instead; the column halo (max arm) amplifies reads far
-        # less than re-reading halo rows per D-split (204 -> 36 ms/band)
+        # less than re-reading halo rows per D-split
         cw = max(8, col_budget)
         outs = []
         for c0 in range(0, w_out, cw):
@@ -394,9 +373,8 @@ def _rect_sums_shared_bounds(
 
     flat = sat.reshape(d, hp * wp).T                       # [(Hp*Wp), D]
 
-    # four separate gathers: a single fused gather over the concatenated
-    # corner indices measured 1.6x *slower* (9.99 vs 6.26 ms end to end) —
-    # the interleaved far-apart corners defeat gather coalescing
+    # four separate gathers: one fused gather over the concatenated corner
+    # indices interleaves far-apart corners and defeats coalescing
     def g(ii, jj):
         return flat[(ii * wp + jj).reshape(-1)]            # [H*W, D]
 
@@ -404,21 +382,12 @@ def _rect_sums_shared_bounds(
     return jnp.moveaxis(out.reshape(out_shape + (d,)), -1, 0)
 
 
-# Pixel-major rect corner picks (round-5 attempt at VERDICT r4 item 4):
-# SAT and picks in [H, W, D] with the disparity axis padded to a lane-
-# friendly multiple, so the flat gather source is a FREE reshape and row
-# chunks are FREE slices (the pm idea that removed the cross-aggregation
-# transposes).  MEASURED NEGATIVE at reference disparity ranges (v5e,
-# experiments/_r5_rectpm.py, no-DCE e2e): cblsm 12.19 -> 12.35 ms,
-# flagship 8.75 -> 8.84 ms, 720p/D=128 flagship 87.7 -> 88.9 ms — at
-# D = 60 the [D, rows, W] -> [(rows*W), D] chunk transposes the pm layout
-# removes were already elided/cheap in whole-pipeline programs (the same
-# finding as round 2's "pixel-major rect->WTA threading is a no-op"),
-# and the lane padding 60 -> 64 buys nothing (picks were width-
-# insensitive at 60/64/128 per the round-2 gather table).  The pm win is
-# specific to the D >= 128 cross-aggregation regime where per-pass
-# full-volume layout moves dominated.  _RECT_PM_AUTO stays False;
-# layout='pixel_major' remains for cross-checks.
+# Pixel-major rect corner picks: SAT and picks in [H, W, D] with the
+# disparity axis padded to a multiple of _RECT_PM_PAD, so the flat gather
+# source is a FREE reshape and row chunks are FREE slices.  It was no
+# faster than the d-major path at reference disparity ranges on an earlier
+# accelerator, so _RECT_PM_AUTO stays False and layout='pixel_major'
+# remains for cross-checks (ROADMAP design item 7).
 _RECT_PM_AUTO = False
 _RECT_PM_PAD = 64
 
@@ -447,7 +416,7 @@ def _rect_sums_pm(
         _cumsum_axis0(_mxu_cumsum(x, -2)), ((1, 0), (1, 0), (0, 0))
     )                                                  # [H+1, W+1, Dp]
     hp, wp = h + 1, -(-(w + 1) // 8) * 8
-    # sublane-padded flat stride — see _hsum_pm's STRIDE PAD note
+    # flat stride padded to a multiple of 8 — see _hsum_pm's STRIDE PAD note
     if wp != w + 1:
         c = jnp.pad(c, ((0, 0), (0, wp - (w + 1)), (0, 0)))
     if max_span is not None and 4 * dp * hp * wp > _GATHER_CHUNK_MIN_BYTES:
@@ -549,13 +518,9 @@ def _banded_pick(cs, off, o_lo: int, o_hi: int, axis: int, out_len: int):
     per-element gather — the same trade as `post._banded_select_cols`.
     Bit-identical picks.
 
-    MEASURED TRADE (v5e, do not re-litigate): on 2-D [H, W] maps the select
-    chain wins big (LR-check gathers 1.7 -> 0.4 ms); on [60, 375, 450]
-    volumes it LOSES to the contiguous-D-row gather (`_hsum` 2.25 -> 2.71 ms,
-    cross_two_pass e2e 31.9 -> 41.2 ms) — XLA does not fuse the ~70-step
-    chain over 40 MB of data, so every step pays an HBM round trip that the
-    60-element contiguous gather rows amortize.  Use banding for 2-D maps
-    only; keep gathers for volumes.
+    Use it for 2-D [H, W] maps; on [D, H, W] volumes XLA does not fuse the
+    ~70-step chain, so every step reads and writes the whole volume, which
+    the contiguous-D-row gathers avoid.
     """
     m = cs.shape[axis]
     pad_lo = max(0, -o_lo)
@@ -603,9 +568,9 @@ def _hsum(
     d, h = x.shape[0], x.shape[1]
     if 4 * d * h * (w + 1) > _GATHER_FAST_SRC_BYTES:
         # row-chunked gather source (spans are row-local, so the picks are
-        # exact; see _rect_sums_shared_bounds for the measured VMEM cliff).
-        # 720p/D=128: 36.6 -> 17 ms.  Note XLA may still retile the cumsum
-        # matmul when the consumer changes (last-ulp scheduling drift).
+        # exact; chunk size at _GATHER_FAST_SRC_BYTES).  Note XLA may still
+        # retile the cumsum matmul when the consumer changes (last-ulp
+        # scheduling drift).
         band = max(8, _GATHER_FAST_SRC_BYTES // (4 * d * (w + 1)))
         outs = []
         for r0 in range(0, h, band):
@@ -625,7 +590,7 @@ def _hsum(
 
 
 def _cumsum_axis0(x: jax.Array) -> jax.Array:
-    """Inclusive cumsum along axis 0 as triangular MXU contractions —
+    """Inclusive cumsum along axis 0 as triangular matrix contractions —
     the leading-axis twin of :func:`_mxu_cumsum` (pixel-major volumes put
     rows first, so neither -1 nor -2 is the scan axis).  Same two-level
     blocking above ``_CUMSUM_DENSE_MAX``; precision HIGHEST."""
@@ -646,11 +611,9 @@ def _cumsum_axis0(x: jax.Array) -> jax.Array:
 
 
 # Pixel-major ([H, W, D]) volume span sums: at serving disparity ranges
-# (D >= 128, an exact lane multiple at 256) the [D, H, W] gather path's
-# per-chunk [D, rows, W] -> [(rows*W), D] transposes dominate — at a 4K
-# canonical band they move ~4 GB per pass and made the streamed canonical
-# pipeline ~100x slower than modeled (375 s at [540,1920]/D=256, watchdog
-# -killed at 4K).  Pixel-major keeps D minor end to end: the flat gather
+# (D >= 128) the [D, H, W] gather path's per-chunk [D, rows, W] ->
+# [(rows*W), D] transposes dominate — at a 4K canonical band they move
+# ~4 GB per pass.  Pixel-major keeps D minor end to end: the flat gather
 # source is a FREE reshape, row chunks are FREE slices, and every pick
 # still fetches one contiguous D-row.
 _CROSS_PM_MIN_D = 128
@@ -662,16 +625,12 @@ def _hsum_pm(x: jax.Array, left: jax.Array, right: jax.Array) -> jax.Array:
     free ``[(H*(W+1)), D]`` reshape, row-chunked at ``_GATHER_FAST_SRC_BYTES``
     with FREE slices (no transposes anywhere — the point of this path).
 
-    STRIDE PAD (round 5, keep): the prefix tensor's middle axis pads to a
-    sublane (8) multiple before the ``[rows, stride, D] -> [rows*stride,
-    D]`` chunk reshapes.  With the natural odd stride W+1, the chunked
-    gathers EXECUTE INCORRECTLY on TPU at some geometries — "TPU backend
-    error (Internal)" / worker crashes, first hit by the 4K canonical
-    streamed bands ([344, 3841, 256] chunks of 26 rows; W <= 2688 ran,
-    W >= 3072 died, band=8 and unchunked ran) — an XLA:TPU runtime fault
-    isolated in experiments/_r5_pm_isolate.py.  Padding the stride to 8
-    fixed every crash geometry with bit-identical checksums; the padded
-    tail rows are never indexed (hi <= W < stride)."""
+    STRIDE PAD: the prefix tensor's middle axis pads to a multiple of 8
+    before the ``[rows, stride, D] -> [rows*stride, D]`` chunk reshapes.
+    An earlier compiler executed the chunked gathers incorrectly with the
+    natural odd stride W+1 at 4K widths; the pad is bit-identical (the
+    padded tail rows are never indexed, hi <= W < stride).  Whether the
+    GPU needs it is ROADMAP design item 2."""
     h, w, d = x.shape
     cs = jnp.pad(_mxu_cumsum(x, -2), ((0, 0), (1, 0), (0, 0)))  # [H, W+1, D]
     stride = -(-(w + 1) // 8) * 8
@@ -700,10 +659,8 @@ def _vsum_pm(
     """:func:`_vsum` on a pixel-major volume: span sums along rows.  The
     row-bound picks are row-local (arms are capped at ``max_arm``), so row
     chunks slice a ``max_arm``-haloed window of the prefix tensor — again
-    a FREE leading-axis slice.  The flat stride pads to a sublane multiple
-    for general (odd-W) inputs — see :func:`_hsum_pm`'s STRIDE PAD note
-    (the measured crash geometries all had even W here, but the reshape
-    pattern is the same)."""
+    a FREE leading-axis slice.  The flat stride pads to a multiple of 8
+    for general (odd-W) inputs — see :func:`_hsum_pm`'s STRIDE PAD note."""
     h, w, d = x.shape
     cs = jnp.pad(_cumsum_axis0(x), ((1, 0), (0, 0), (0, 0)))    # [H+1, W, D]
     stride = -(-w // 8) * 8
@@ -757,7 +714,7 @@ _MM_BAND_LIMIT_BYTES = 800 * 1024 * 1024
 
 
 def _hsum_mm(x_pm: jax.Array, band_h: jax.Array) -> jax.Array:
-    """Arm-span row sums as a batched MXU matmul: ``out[h,w,d] =
+    """Arm-span row sums as a batched matmul: ``out[h,w,d] =
     sum_q band_h[h,w,q] * x[h,q,d]`` with the 0/1 band built from the arms."""
     return jnp.einsum(
         "hwq,hqd->hwd", band_h, x_pm, precision=jax.lax.Precision.HIGHEST
@@ -806,15 +763,14 @@ def cross_aggregate(
 
     ``method``:
 
-    * ``'matmul'`` — each arm-span sum is a batched MXU matmul against a
+    * ``'matmul'`` — each arm-span sum is a batched matmul against a
       dense 0/1 band tensor built once from the arms, in a pixel-major
       ``[H, W, D]`` layout.  The prefix-sum gather path pays ~3 full-volume
       layout movements per pass (compiled HLO shows a transpose on every
       gather result plus a ``[H*W, D]`` copy per pass, inserted by layout
-      assignment); the matmul path replaces picks + copies with dense MXU
-      work and *direct* span sums (no SAT cancellation).  Measured on v5e
-      (Teddy, D=60, 4 iters): 26.5 -> 16.2 ms, WTA tie flips 0.023%,
-      bad-2.0 unchanged.
+      assignment); the matmul path replaces picks + copies with dense
+      matrix work and *direct* span sums (no SAT cancellation; WTA tie
+      flips differ from the gather path on ~0.02% of pixels).
     * ``'gather'`` — row/column prefix sums + contiguous-D-row picks
       (:func:`_hsum` / :func:`_vsum`) in the documented ``[D, H, W]``
       layout.  Always honored verbatim (the exactness cross-check escape
@@ -828,19 +784,19 @@ def cross_aggregate(
 
     ``max_arm``: static arm-length cap (`CrossAggregatorParams.cross_l1`
     for canonical arms) that switches the gather path's span sums to the
-    banded VPU select chain — bit-identical to plain gathers (see
-    :func:`_hsum`).  NOTE: on volumes this is *slower* (the measured trade
-    in :func:`_banded_pick` — 31.9 -> 41.2 ms e2e) and it also disables
-    the 'auto' matmul path; it exists for exactness cross-checks, not
-    speed — leave it None in production calls (every pipeline does).
+    banded select chain — bit-identical to plain gathers (see
+    :func:`_hsum`).  NOTE: on volumes this is *slower* (see
+    :func:`_banded_pick`) and it also disables the 'auto' matmul path; it
+    exists for exactness cross-checks, not speed — leave it None in
+    production calls (every pipeline does).
 
     ``span_cap``: static bound on the arm lengths used ONLY to size the
     pixel-major path's row-chunk halos (exact — picks clip identically);
     unlike ``max_arm`` it changes no pick strategy.  The pixel-major path
-    engages for ``D >= _CROSS_PM_MIN_D`` volumes (serving ranges, D a lane
-    multiple), where it replaces the [D, H, W] gather path's ~3 full-
-    volume layout moves per pass with zero (one transpose in/out total) —
-    the 100x band-scale cliff documented at ``_CROSS_PM_MIN_D``.  Last-ulp
+    engages for ``D >= _CROSS_PM_MIN_D`` volumes (serving ranges), where it
+    replaces the [D, H, W] gather path's ~3 full-volume layout moves per
+    pass with zero (one transpose in/out total) — see
+    ``_CROSS_PM_MIN_D``.  Last-ulp
     note: the prefix sums run as the same HIGHEST-precision triangular
     contractions but on transposed layouts, so results can differ from
     the [D, H, W] path in the final ulp of the SAT cancellation — inside
@@ -966,7 +922,7 @@ def rect_mean_aggregate_volume(
     sat = _sat(vol)  # [D, H+1, W+1]
     dd = jax.lax.broadcasted_iota(jnp.int32, (d, h, w), 0)
 
-    # Per-element picks (scalar-core gather): unlike rect_mean_aggregate,
+    # Per-element picks: unlike rect_mean_aggregate,
     # the v4 arms are *disparity-conditioned* — every d has different
     # corner coordinates — so the contiguous-D-row gather layout of
     # `_rect_sums_shared_bounds` cannot apply.  Dormant path

@@ -1,54 +1,28 @@
-"""Pallas TPU kernel for the adaptive-support-weight cost volume.
+"""Pallas kernel (Triton route, GPU) for the adaptive-support-weight volume.
 
-The FLOP-heaviest op in the framework (SURVEY.md §2.6: 25x25 window x 60
-disparities per pixel, `ASW/ASW.h:210-257,329-431`) and the designated
-first speed-of-light target (SURVEY.md §7 step 3).
+The FLOP-heaviest op of the engine (SURVEY.md §2.6: a 25x25 window x D
+disparities per pixel, `ASW/ASW.h:210-257,329-431`).
 
-Why a kernel: the jnp reference (`ops.volume.asw_volume`) scans over the
-(2R+1)^2 window offsets carrying [D, H, W] accumulators — XLA keeps that
-80 MB carry in HBM, so 625 steps move ~100 GB.  Here each grid tile DMAs
-its left and right image windows into VMEM once and accumulates entirely
-on-chip; HBM traffic collapses to ~2x the volume size.
+Why a kernel: the plain path (`ops.volume.asw_volume`) is a `lax.scan`
+over the (2R+1)^2 window offsets whose carry is two ``[D, H, W]`` float32
+accumulators.  The carry crosses scan steps, so XLA keeps it in device
+memory and every one of the 625 steps reads and writes both volumes.
+Here each block owns one ``[DC, TH, TW]`` output block (a disparity chunk
+of a row/column tile) and keeps its ``num``/``den`` accumulators in
+registers across the whole window loop; device memory sees the two
+images once and the volume once.
 
-The shear identity (round-2 rework):
-every right-view operand is a horizontal shift of the *one* right image,
+Blocks are independent: the grid is (disparity chunk, row tile, column
+tile) and nothing carries from one grid step to the next.  Window offsets
+are pointer offsets: for offset (dy, dx) the left tile is read at
+``lp[y0 + dy :, x0 + dx :]`` and the right operand of disparity ``d`` at
+column ``x + dx + (DP - 1) - d`` of the right image padded by ``r + DP - 1``
+columns on the left (the shear identity: every right operand is a
+horizontal shift of the one right image, so a block reads a
+``[TH + 2r, TW + 2r + DC - 1]`` band, served from L1 across the loop).
 
-    S[d, y, x + dx] = R[y, x + dx - d],
-
-so across the (dx, d) inner loops only ``k = dx - d`` matters: there are
-just ``2r + D`` distinct shifted rows, not ``(2r+1) * D``.  The kernel
-therefore
-
-* DMAs a single [sh, TW + 2r + D - 1] right band per tile (the previous
-  design copied a D-deep pre-shifted HBM stack — 60x the DMA bytes and
-  1.97 MB of VMEM at the defaults);
-* materializes, once per vertical offset dy, a shift table
-  ``shift_scr[m] = band[:, K-1-m : K-1-m+TW]`` (K = 2r + D unaligned lane
-  slices — the ONLY lane-shift work left);
-* stores it in *reversed* k order so the per-dx read of all D disparities
-  is one contiguous axis-0 view ``shift_scr[2r-dx : 2r-dx+D]`` — a free
-  VMEM slice, no per-(dx, d) rotation at all.
-
-Measured on v5e (Teddy 450x375, D=60, left volume): 76.4 ms vs 78-81 ms
-for the stack-based kernel — the kernel is VPU-throughput-bound on its
-~10 essential vector ops per (pixel, offset, d), so removing the
-per-(dx, d) lane rotations and 60x the DMA bytes mostly buys *memory*
-headroom, not time.  The relevant ablation bounds: with a dx-invariant
-right operand (wrong results, timing only) the same loop runs in 9.2 ms,
-i.e. delivering 1,500 *distinct* D-rank operand streams per row-step
-costs ~67 ms whether they arrive by lane rotation (old), shift-table
-loads (this kernel), or register-blocked stacks (a d-blocked variant
-with value-carried accumulators measured 154-339 ms — fori carry
-overhead).  Absent a lower-op-count algebra, this is the plateau.
-
-Mosaic constraints shape the design: dynamic offsets along the 128-lane
-axis must be provably 128-aligned, so the window's horizontal offsets and
-the shift-table build are statically unrolled loops (static lane slices),
-while the vertical offsets stay a `fori_loop` advanced by `pltpu.roll`
-(static shift) — dynamic *sublane* offsets never occur.
-
-Weight algebra (exactly the reference's product, fused into one
-transcendental per (pixel, offset, d)):
+Weight algebra (the reference's product, one transcendental per
+(pixel, offset, d)):
 
     w = exp(-dL^2/2sc^2) * exp(-dR^2/2sc^2) * exp(-|o|^2/2ss^2)^2
       = exp(-(dL^2 + dR^2)/2sc^2 - |o|^2/ss^2)
@@ -56,159 +30,86 @@ transcendental per (pixel, offset, d)):
 (`bilateralfiterWight` multiplies the space mask into *both* the left and
 right masks — `ASW/ASW.h:222-248` — hence the squared space term.)
 
-Why the fused form and not the reference's factored wL(p,o)*wR(p-d,o)
-(`ASW.h:222-248`), which needs D-fold fewer exps?  exp ablation on v5e:
-deleting the exp entirely leaves the runtime unchanged — the
-transcendental pipelines for free behind the surrounding vector ops, so
-reducing exp *count* cannot help.  (Historical dead ends — the factored
-in-register rewrite at 113 ms, per-d vreg accumulation at 603 ms, d-chunked
-carries at 1.4-2.6x — are recorded in git history and BASELINE.md.)
-
-EXACT BINNED/FACTORED ACCUMULATION: CLOSED AS A NEGATIVE (round 5).
-The u8 domain makes the right-guidance color weight a <=256-value
-discrete function (the reference's own LUT, `ASW/ASW.h:41-47`), inviting
-an exact binned accumulation over the shear coordinate k = dx - d with
-per-bin partials reused across d.  The op-count arithmetic rules every
-exact variant out:
-
-* Writing the (p, d) term sum over offsets o = (dy, dx) as
-  gy(dy)*gx(dx) * cL[|l - a|] * cR[|r - c|] * min(|l - r|, T) with
-  l = L(y+dy, x+dx), r = R(y+dy, x+dx-d), a = L(y, x), c = R(y, x-d):
-  every factor except the separable space Gaussian depends on d — cL
-  through dx = k + d, cR through the CENTER c = R(y, x-d), and the
-  truncated error through l.  The only d-invariant per-(pixel, k)
-  quantity is the bare intensity r, which carries no summation weight,
-  so no partial sum over k can be reused across d.  Reuse across
-  neighboring output pixels fails the same way: a column pair
-  (xl, xr = xl - d) is consumed by 2R+1 outputs x, each with different
-  centers (a, c) — sharing would be data-dependent intensity
-  coincidence, not structure.
-* Binning the d-dependence of the centers away costs more than it
-  saves: per-bin partials over the right center c alone need 256
-  evaluations per (pixel, offset) where the direct stream needs D = 60
-  (a 4.3x inflation before use), and the error term's coupling of l
-  and r adds a 256-bin l dimension on top (joint 65,536x).  The
-  histogram (Porikli) form of the same idea needs a 256^2-bin joint
-  histogram vs the direct stream's (2R+1)^2 = 625 terms — 100x more
-  bins than window taps, and the *Gaussian* (non-box) space mask rules
-  out O(1) sliding-histogram updates anyway.  The B < w^2 regime where
-  exact binning wins is the single-guidance bilateral — exactly what
-  the opt-in `approx='grid'` mode (quantized PBFIC) already exploits,
-  with its accuracy gap measured (+0.5pp Teddy, +3.4pp 720p bad-2.0).
-* Therefore every exact scheme evaluates >= 1 MAC per (pixel, offset,
-  d) term — the direct stream's asymptotic count is already minimal.
-  The kernel's ~10 vector ops per term against a ~4-op ideal bounds
-  any remaining scheduling win below 2.5x, and the round-2 ablations
-  (exp deletion: no change; operand streams cost 67 of 76 ms however
-  delivered) show the residue is operand delivery, not arithmetic.
-  A >= 1.5x exact win does not exist on this hardware model; further
-  speed requires approximation (grid mode) or different hardware.
+Tile sizes are powers of two (the Triton route requires it); the image
+is padded up to whole tiles and the disparity range to whole chunks, and
+the padding is cropped before :func:`ops.volume.border_fill`.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from stereo_match_traditional_tpu.ops.volume import border_fill
 
-_TH = 8     # sublane tile rows
-_TW = 128   # lane tile cols
+_DC = 4     # disparities per block
+_TH = 8     # rows per block
+_TW = 64    # columns per block
+_NUM_WARPS = 4
+_NUM_STAGES = 1
 
 
-def _scr_h(radius: int) -> int:
-    return -(-(_TH + 2 * radius) // 8) * 8       # sublane-aligned scratch rows
+def resolve_use_pallas(use_pallas: Optional[bool]) -> bool:
+    """Whether the ASW volume runs through this kernel.
+
+    ``None`` selects the kernel exactly when the default backend is the
+    GPU, where it compiles through Triton.  ``True`` on another backend
+    raises: the kernel has no compiled route there, and it never falls
+    back to the Pallas interpreter on its own.
+    """
+    backend = jax.default_backend()
+    if use_pallas is None:
+        return backend == "gpu"
+    if use_pallas and backend != "gpu":
+        raise ValueError(
+            f"ASWConfig(use_pallas=True) needs the GPU backend (have "
+            f"{backend!r}); the ASW kernel compiles only through Triton — "
+            "use use_pallas=None/False, or call asw_volume_pallas(..., "
+            "interpret=True) to run it in the Pallas interpreter"
+        )
+    return bool(use_pallas)
 
 
-def _scr_w(width: int) -> int:
-    return -(-width // 128) * 128                # lane-aligned scratch cols
+def _asw_kernel(lp_ref, rp_ref, out_ref, *, radius, d_pad, inv2sc, inv_ss, trunc):
+    c = pl.program_id(0)
+    y0 = pl.program_id(1) * _TH
+    x0 = pl.program_id(2) * _TW
+    side = 2 * radius + 1
+    shape = (_DC, _TH, _TW)
+    dk = lax.broadcasted_iota(jnp.int32, shape, 0) + c * _DC
+    rows = lax.broadcasted_iota(jnp.int32, shape, 1) + y0
+    # right-image column of (x, d) at window column 0, in the padded frame
+    cols = lax.broadcasted_iota(jnp.int32, shape, 2) + x0 + (d_pad - 1) - dk
 
-
-def _asw_kernel(
-    l_hbm, r_hbm, out_ref, l_scr, r_scr, shift_scr, num_ref, den_ref, sem,
-    *, radius: int, disp_range: int, inv2sc: float, inv_ss: float, trunc: float,
-):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    r = radius
-    side = 2 * r + 1
-    d_range = disp_range
-    n_k = 2 * r + d_range                        # distinct shifts k = dx - d
-    sh = _scr_h(r)
-    sw_l = _scr_w(_TW + 2 * r)
-    sw_r = _scr_w(_TW + 2 * r + d_range - 1)
-
-    # copy slice shapes must be (8, 128)-tile aligned; the scratches are
-    # padded accordingly and only their leading windows are ever read.
-    cp_l = pltpu.make_async_copy(
-        l_hbm.at[pl.ds(i * _TH, sh), pl.ds(j * _TW, sw_l)], l_scr, sem.at[0]
-    )
-    cp_r = pltpu.make_async_copy(
-        r_hbm.at[pl.ds(i * _TH, sh), pl.ds(j * _TW, sw_r)], r_scr, sem.at[1]
-    )
-    cp_l.start()
-    cp_r.start()
-    cp_l.wait()
-    cp_r.wait()
-
-    l_c = l_scr[r : r + _TH, r : r + _TW]                   # [TH, TW]
-
-    # Right-view window centers R[y_c, x + r - d]: in the band's coordinates
-    # (left halo D-1+r) that is shift k = r - d + (D-1).  Loop-invariant —
-    # built once per tile as a stacked value, exactly the old rs_c.
-    r_center = r_scr[r : r + _TH, :]                        # [TH, SWR]
-    rs_c = jnp.stack(
-        [
-            r_center[:, r + d_range - 1 - d : r + d_range - 1 - d + _TW]
-            for d in range(d_range)
-        ]
-    )                                                       # [D, TH, TW]
-
-    num_ref[:] = jnp.zeros((d_range, _TH, _TW), jnp.float32)
-    den_ref[:] = jnp.zeros((d_range, _TH, _TW), jnp.float32)
+    l_c = lp_ref[pl.ds(y0 + radius, _TH), pl.ds(x0 + radius, _TW)]
+    r_c = rp_ref[rows + radius, cols + radius]
 
     def dy_body(dy, carry):
-        l_cur, r_cur = carry
-        vspace = ((dy - r) * (dy - r)).astype(jnp.float32)
-        l_top = l_cur[0:_TH, :]                             # [TH, SWL]
-        r_top = r_cur[0:_TH, :]                             # [TH, SWR]
-        # Shift table in reversed k order: shift_scr[m] holds the band
-        # shifted by k = n_k - 1 - m, so the d axis for a given dx is the
-        # contiguous view shift_scr[2r - dx : 2r - dx + D] (d ascending).
-        for m in range(n_k):
-            off = n_k - 1 - m
-            shift_scr[m] = r_top[:, off : off + _TW]
-        # chunked value accumulation: Mosaic keeps every unrolled
-        # iteration's temporaries live on the scoped-VMEM stack (a full
-        # 25-wide value chain OOMs at ~28 MB); 6-wide chunks flushed to
-        # scratch refs stay under the 16 MB budget.
-        chunk = 6
-        for c0 in range(0, side, chunk):
-            num = jnp.zeros((d_range, _TH, _TW), jnp.float32)
-            den = jnp.zeros((d_range, _TH, _TW), jnp.float32)
-            for dx in range(c0, min(c0 + chunk, side)):
-                l_o = l_top[:, dx : dx + _TW]
-                r_o = shift_scr[2 * r - dx : 2 * r - dx + d_range]  # [D,TH,TW]
-                dl = l_o - l_c                              # [TH, TW]
-                dr = r_o - rs_c                             # [D, TH, TW]
-                space = vspace + float((dx - r) * (dx - r))
-                w = jnp.exp(
-                    -(dl[None] * dl[None] + dr * dr) * inv2sc - space * inv_ss
-                )
-                e = jnp.minimum(jnp.abs(l_o[None] - r_o), trunc)
-                num = num + w * e
-                den = den + w
-            num_ref[:] += num
-            den_ref[:] += den
-        # up-by-one row advance (roll shift must be non-negative)
-        return pltpu.roll(l_cur, sh - 1, 0), pltpu.roll(r_cur, sh - 1, 0)
+        vspace = (dy - radius) * (dy - radius)
 
-    jax.lax.fori_loop(0, side, dy_body, (l_scr[:], r_scr[:]))
-    out_ref[:] = num_ref[:] / jnp.maximum(den_ref[:], 1e-20)
+        def dx_body(dx, carry):
+            num, den = carry
+            l_o = lp_ref[pl.ds(y0 + dy, _TH), pl.ds(x0 + dx, _TW)]     # [TH, TW]
+            r_o = rp_ref[rows + dy, cols + dx]                          # [DC, TH, TW]
+            space = (vspace + (dx - radius) * (dx - radius)).astype(jnp.float32)
+            dl = l_o - l_c
+            a = dl * dl * inv2sc + space * inv_ss                       # [TH, TW]
+            dr = r_o - r_c
+            w = jnp.exp(-(dr * dr * inv2sc + a[None]))
+            e = jnp.minimum(jnp.abs(l_o[None] - r_o), trunc)
+            return num + w * e, den + w
+
+        return lax.fori_loop(0, side, dx_body, carry)
+
+    zero = jnp.zeros(shape, jnp.float32)
+    num, den = lax.fori_loop(0, side, dy_body, (zero, zero))
+    out_ref[...] = num / jnp.maximum(den, 1e-20)
 
 
 @functools.partial(
@@ -218,7 +119,7 @@ def _asw_kernel(
         "interpret",
     ),
 )
-def _asw_pallas_left(
+def _asw_left(
     left: jax.Array,
     right: jax.Array,
     disp_range: int,
@@ -226,68 +127,45 @@ def _asw_pallas_left(
     space_sigma: float,
     color_sigma: float,
     truncation: float,
-    interpret: bool = False,
+    interpret: bool,
 ) -> jax.Array:
     radius = win_size + 1
     h, w = left.shape
+    d_pad = -(-disp_range // _DC) * _DC
     hp = -(-h // _TH) * _TH
     wp = -(-w // _TW) * _TW
-    sh = _scr_h(radius)
-    sw_l = _scr_w(_TW + 2 * radius)
-    sw_r = _scr_w(_TW + 2 * radius + disp_range - 1)
-    # padded input extents so the last tile's aligned copy slices stay in
-    # bounds: rows hp - TH + sh; cols wp - TW + sw_l / sw_r
-    bot = (hp - _TH + sh) - h - radius
-    rgt_l = (wp - _TW + sw_l) - w - radius
-    # The right band carries a D-1 column left halo (output col x at
-    # disparity d reads R columns down to x - d + window), edge-clamped like
-    # `shifted_stack`'s clip-at-0; the d > x border triangle those clamped
-    # values can influence is overwritten by border_fill below.
-    lft_r = radius + disp_range - 1
-    rgt_r = (wp - _TW + sw_r) - w - lft_r
-
-    lf = left.astype(jnp.float32)
-    rf = right.astype(jnp.float32)
-    lp = jnp.pad(lf, ((radius, bot), (radius, rgt_l)), "edge")
-    rp = jnp.pad(rf, ((radius, bot), (lft_r, rgt_r)), "edge")
-
-    grid = (hp // _TH, wp // _TW)
+    # Edge padding: `radius` rows/cols of window halo (the reference's
+    # replicate border, `ASW/ASWeight.cpp:54-55`) plus the tile round-up;
+    # the right image also carries a d_pad-1 column left halo.  Its
+    # clamped values reach only the d > x triangle, which border_fill
+    # overwrites below.
+    lp = jnp.pad(left.astype(jnp.float32),
+                 ((radius, hp - h + radius), (radius, wp - w + radius)), "edge")
+    rp = jnp.pad(right.astype(jnp.float32),
+                 ((radius, hp - h + radius), (radius + d_pad - 1, wp - w + radius)),
+                 "edge")
     kernel = functools.partial(
         _asw_kernel,
         radius=radius,
-        disp_range=disp_range,
+        d_pad=d_pad,
         inv2sc=1.0 / (2.0 * color_sigma * color_sigma),
         inv_ss=1.0 / (space_sigma * space_sigma),
         trunc=float(truncation),
     )
-    n_k = 2 * radius + disp_range
     vol = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),      # lp stays in HBM
-            pl.BlockSpec(memory_space=pl.ANY),      # rp stays in HBM
-        ],
-        out_specs=pl.BlockSpec(
-            (disp_range, _TH, _TW), lambda i, j: (0, i, j), memory_space=pltpu.VMEM
+        grid=(d_pad // _DC, hp // _TH, wp // _TW),
+        in_specs=[pl.BlockSpec(), pl.BlockSpec()],
+        out_specs=pl.BlockSpec((_DC, _TH, _TW), lambda c, i, j: (c, i, j)),
+        out_shape=jax.ShapeDtypeStruct((d_pad, hp, wp), jnp.float32),
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
-        out_shape=jax.ShapeDtypeStruct((disp_range, hp, wp), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((sh, sw_l), jnp.float32),
-            pltpu.VMEM((sh, sw_r), jnp.float32),
-            pltpu.VMEM((n_k, _TH, _TW), jnp.float32),
-            pltpu.VMEM((disp_range, _TH, _TW), jnp.float32),
-            pltpu.VMEM((disp_range, _TH, _TW), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        # Mosaic's default scoped-vmem limit is 16 MiB; at serving ranges
-        # (D=128) this kernel's scratch + unrolled shift-table temporaries
-        # need ~16.5 MiB (measured: 480 KiB over on a 720p/D=128 band).
-        # v5e VMEM is 128 MiB — raise the scope so D up to ~512 fits.
-        compiler_params=pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024),
         interpret=interpret,
+        name="asw_volume",
     )(lp, rp)
-    return border_fill(vol[:, :h, :w], "left")
+    return border_fill(vol[:disp_range, :h, :w], "left")
 
 
 def asw_volume_pallas(
@@ -299,26 +177,26 @@ def asw_volume_pallas(
     color_sigma: float = 30.0,
     truncation: float = 40.0,
     view: str = "left",
-    interpret: bool = None,
+    interpret: bool = False,
 ) -> jax.Array:
     """Drop-in replacement for `ops.volume.asw_volume` (`ASW/ASW.h:329-431`).
 
-    ``interpret=None`` auto-selects interpreter mode off-TPU (CPU tests run
-    the same kernel through the Pallas interpreter, SURVEY.md §4).
+    Compiled through Triton for the GPU.  ``interpret=True`` runs the same
+    kernel in the Pallas interpreter (how the CPU tests check it); on any
+    other backend without ``interpret`` this raises rather than fall back.
     The right view reuses the left kernel through the mirror identity
     (`ops.volume.asw_volume_right`).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if view == "right":
-        lf = jnp.asarray(left)[:, ::-1]
-        rf = jnp.asarray(right)[:, ::-1]
-        vol = _asw_pallas_left(
-            rf, lf, disp_range, win_size, space_sigma, color_sigma, truncation,
-            interpret,
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            f"asw_volume_pallas compiles only for the GPU (backend is "
+            f"{jax.default_backend()!r}); pass interpret=True to run it in "
+            "the Pallas interpreter"
         )
+    args = (disp_range, win_size, space_sigma, color_sigma, truncation, interpret)
+    if view == "right":
+        vol = _asw_left(jnp.asarray(right)[:, ::-1], jnp.asarray(left)[:, ::-1], *args)
         return vol[:, :, ::-1]
-    return _asw_pallas_left(
-        jnp.asarray(left), jnp.asarray(right), disp_range, win_size,
-        space_sigma, color_sigma, truncation, interpret,
-    )
+    if view != "left":
+        raise ValueError(f"view must be 'left' or 'right', got {view!r}")
+    return _asw_left(jnp.asarray(left), jnp.asarray(right), *args)

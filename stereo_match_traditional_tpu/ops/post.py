@@ -55,9 +55,7 @@ def _banded_select_cols(vals, col, jj, lo, hi):
     """``vals[i, col[i, j]]`` where ``col`` is known to stay within the
     per-pixel band ``[j + lo, j + hi]`` (disparity-bounded reprojection),
     realized as an unrolled shift+select chain over the band instead of a
-    per-element lane gather — `take_along_axis` along the 128-lane axis
-    lowers to scalar-core loads (measured 1.7 ms for the two gathers of
-    `lr_check_consistency` at Teddy size vs ~0.4 ms for the selects).
+    per-element `take_along_axis` gather along the contiguous axis.
     Out-of-band entries return 0; every caller masks them (they only occur
     for invalid/garbage disparities whose classification is
     value-independent).
@@ -211,13 +209,9 @@ def remove_speckles(
     hook-and-jump min propagation on the label array.  ``None`` keeps the
     single-level flood.
 
-    MEASURED NEGATIVE on v5e (round 4, do not re-propose as a TPU
-    optimization): Teddy flagship map 3.39 ms (None) vs 29.3/22.0/19.9/
-    15.5/14.7/14.1 ms at block=16/32/48/64/96/128; FULL flagship 17.0 ->
-    27-34 ms.  The merge phase's scatter-min hooking costs ~11 ms flat
-    (TPU scatters serialize) — far more than the sweep rounds it saves.
-    The parameter stays as an exact CPU-friendly alternative and as the
-    recorded experiment (VERDICT r3 item 3); no pipeline sets it.
+    On an earlier accelerator the merge phase's scatter-min hooking cost
+    far more than the sweep rounds it saves, so no pipeline sets it; the
+    parameter stays as an exact alternative (ROADMAP design item 7).
     """
     if connectivity not in (4, 8):
         raise ValueError(f"connectivity must be 4 or 8, got {connectivity}")
@@ -253,8 +247,7 @@ def remove_speckles(
         labels, _, it = state
         new = sweep(labels)
         # start jumping only past the sweep counts real maps ever need
-        # (Teddy converges in <=20; jumping earlier measured +1.3 ms on the
-        # FULL flagship from the per-jump element gather)
+        # (Teddy converges in <=20; each jump costs an element gather)
         new = jax.lax.cond(
             (it >= 24) & ((it - 24) % 3 == 0), _jump, lambda l: l, new
         )
@@ -340,17 +333,14 @@ def _speckle_sweep_fn(d, valid, diff_insame, connectivity, big,
     direction) and every sweep inside the loop is just shift+select+min
     on contiguous slices — no per-iteration segmented scans.  (The
     associative_scan formulation re-derived the segment flags at every
-    combine level of every sweep of every iteration; this rewrite
-    measured 9.7 -> 1.8 ms on the Teddy flagship speckle stage, v5e.)
+    combine level of every sweep of every iteration.)
 
-    Negative result (v5e, do not retry): stacking the four direction views
-    (horizontal transposed, vertical, two sheared diagonals) into one
-    padded [4, 450, 824] array to cut the per-step op count 4x measured
-    *slower* (3.28 -> 4.11 ms on the Teddy flagship map) — the stack is 9x
-    the elements of the raw [H, W] map, and the parallel sweeps (each
-    direction reading the same input, min-merged after) also converge in
-    more fixpoint iterations than the chained form below, where direction
-    k sees direction k-1's propagation within the same sweep.
+    The four directions are chained, not stacked into one padded array:
+    a stack of the four views (horizontal transposed, vertical, two
+    sheared diagonals) holds ~9x the elements of the [H, W] map, and
+    parallel sweeps converge in more fixpoint iterations than the chained
+    form below, where direction k sees direction k-1's propagation within
+    the same sweep.
 
     Reused by the row-sharded variant (`parallel.post_shard`), where each
     tile builds its machinery from halo-extended connectivity.
@@ -508,9 +498,9 @@ def _nearest_valid_along_axis(
     Hillis-Steele doubling: at step 2^k each element holds the nearest
     valid within its trailing (leading, if reverse) 2^k window, so taking
     the own hit when found and the 2^k-shifted one otherwise doubles the
-    window.  log2(n) rounds of contiguous shift+select — measurably faster
-    on v5e than the tuple-carrying `associative_scan` formulation (which
-    re-derives the combine tree per call with awkward interleaved slices).
+    window.  log2(n) rounds of contiguous shift+select, in place of the
+    tuple-carrying `associative_scan` formulation (which re-derives the
+    combine tree per call with awkward interleaved slices).
     """
     n = values.shape[axis]
     pos = jnp.arange(n, dtype=jnp.int32)
@@ -749,10 +739,10 @@ def fill_image_last(disp: jax.Array) -> jax.Array:
 # rank selection via sorting networks
 # ---------------------------------------------------------------------------
 #
-# XLA's comparator sort on a [K, H, W] stack and take_along_axis picks both
-# fall off the TPU vector units (measured: ~2.4 ms for a 3x3 median that is
-# ~50 compare-exchanges of work); a Batcher odd-even mergesort network is
-# pure min/max vector ops and a data-dependent rank pick is a select chain.
+# XLA's comparator sort on a [K, H, W] stack and take_along_axis picks are
+# general-purpose kernels for what is ~50 compare-exchanges of work in a
+# 3x3 median; a Batcher odd-even mergesort network is pure elementwise
+# min/max and a data-dependent rank pick is a select chain.
 
 
 def _batcher_pairs(n: int):
@@ -879,7 +869,7 @@ def median_filter(
 # Canonical AD-Census post components (the fields of the vendored
 # `ADCensusOption` that the reference declares but never implements —
 # `CBLSM/adcensus_types.h:72-75`; canonical Mei et al. semantics here so no
-# config field is inert, VERDICT r1 item 9)
+# config field is inert)
 # ---------------------------------------------------------------------------
 
 
@@ -997,7 +987,7 @@ def discontinuity_adjustment(
     dd_iota = jax.lax.broadcasted_iota(jnp.int32, cost_vol.shape, 0)
 
     def cost_at(d, ok):
-        # masked reduction, not an axis-0 gather (scalar-core-bound)
+        # masked reduction, not an axis-0 gather
         idx = jnp.clip(jnp.round(d), 0, d_n - 1).astype(jnp.int32)
         c = jnp.min(jnp.where(dd_iota == idx[None], cost_vol, jnp.inf), axis=0)
         return jnp.where(ok, c, jnp.inf)

@@ -173,9 +173,9 @@ def _directional_pass(
     """One directional pass.
 
     cost: [N, ..., D, M] with axis 0 the path direction, disparity
-    transitions along axis -2, and the perpendicular image axis M on the
-    128-lane axis — with D=60 a [M, D] layout would leave half the lanes
-    idle; this orientation measured 2.2x faster on v5e.  gray: [N, ..., M].
+    transitions along axis -2, and the perpendicular image axis M last
+    (the contiguous axis, so each step's [D, M] slab reads whole rows).
+    gray: [N, ..., M].
     Returns (aggregated, final carry) — the carry (last aggregated column
     and its min) is what a cross-tile continuation would hand to the next
     device; the sharded implementation reshards with all_to_all instead
@@ -247,16 +247,12 @@ def rev_materialized(*xs):
     """Each array reversed along axis 0, MATERIALIZED via
     ``optimization_barrier`` before any consumer.
 
-    WORKAROUND (round 4, keep until the toolchain moves): XLA:TPU's
-    jellyfish ``PipelineEmitter`` CHECK-crashes the compile helper
-    (``fusion_emitter.cc:4290: (base_bounds + pad_high) % strides == 0``,
-    ``ReverseInput::TransformWindow``) when a ``reverse`` op is fused into
-    the strided input pipelining of the unrolled scan
-    (:func:`_scan_unrolled`'s ``x[1:1+main].reshape(main//k, k, ...)``) at
-    shapes where the remainder lands on 3 mod 4 — first hit by the
-    canonical streamed pipeline at [540, 1920]/D=256.  The barrier keeps
-    the reverse out of the fused window; cost is one materialization of
-    the reversed operands (bit-identical results).
+    The barrier keeps a ``reverse`` out of the strided input fusion of
+    the unrolled scan (:func:`_scan_unrolled`'s
+    ``x[1:1+main].reshape(main//k, k, ...)``), where an earlier compiler
+    failed at some shapes; the cost is one materialization of the
+    reversed operands (bit-identical results).  Whether the GPU needs it
+    is open (ROADMAP design item 2).
     """
     import jax
 
@@ -337,7 +333,7 @@ def scanline_optimize_canonical(
     This is the component the vendored ``ADCensusOption``'s
     ``so_p1/so_p2/so_tso`` fields configure (`CBLSM/adcensus_types.h:72` —
     declaration-only in the reference; implemented here with the canonical
-    Mei et al. semantics so no config field is inert, VERDICT r1 item 9).
+    Mei et al. semantics so no config field is inert).
 
     Unlike the committed `ScanlineOptimizer.h` (P2 from the base image
     only), the canonical penalties consult color differences in BOTH
@@ -386,22 +382,16 @@ def scanline_optimize(
     vert_dm1 = not cfg.faithful_vertical_l2
     vert_p2 = "first" if cfg.faithful_vertical_p2 else "prev"
 
-    # Four separate scans: stacking the forward/backward passes into one
-    # scan over a [N, 2, ...] layout measured 50x slower on v5e (and 6
-    # minutes to compile) — XLA tiles the extra middle axis poorly.
-    # horizontal: scan over W; body [D, H] (rows on the lane axis).
-    # Reversed scan operands go through rev_materialized: the raw
-    # `reverse` can fuse into the unrolled scan's strided input pipelining
-    # and CHECK-crash XLA:TPU at some shapes (fusion_emitter.cc:4290 —
-    # round-4 canonical repro at [540, 1920]/D=256, round-5 legacy
-    # streamed repro at the same geometry).  Bit-identical results.
+    # Four separate scans, one per direction.
+    # horizontal: scan over W; body [D, H] (rows on the contiguous axis).
+    # Reversed scan operands go through rev_materialized (bit-identical).
     c_wdh = jnp.transpose(cost, (2, 0, 1))          # [W, D, H]
     g_wh = gray.astype(jnp.float32).T               # [W, H]
     lr, _ = _directional_pass(c_wdh, g_wh, p1, p2, True)
     rl, _ = _directional_pass(*rev_materialized(c_wdh, g_wh), p1, p2, True)
     horiz = lr + rl[::-1]                           # [W, D, H]
 
-    # vertical: scan over H; body [D, W] (columns on the lane axis).
+    # vertical: scan over H; body [D, W] (columns on the contiguous axis).
     c_hdw = jnp.transpose(cost, (1, 0, 2))          # [H, D, W]
     g_hw = gray.astype(jnp.float32)                 # [H, W]
     ud, _ = _directional_pass(c_hdw, g_hw, p1, p2, vert_dm1, p2_ref=vert_p2)

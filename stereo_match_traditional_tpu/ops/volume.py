@@ -1,10 +1,10 @@
 """Cost-volume construction (layer L1).
 
-All volumes are dense ``[D, H, W]`` float32 arrays.  ``W`` sits on the TPU
-128-lane axis and each disparity slice is a contiguous image, so elementwise
-fusion, box sums (MXU banded matmuls) and the WTA reduction over axis 0 all
-map cleanly onto the hardware.  The reference stores ``[row, col, disp]``
-(`AD-CensusV1/AD-Census.h:87`); with D=60 that would waste the lane axis.
+All volumes are dense ``[D, H, W]`` float32 arrays.  ``W`` is the
+contiguous axis and each disparity slice is a contiguous image, so
+elementwise fusion, box sums (banded matmuls) and the WTA reduction over
+axis 0 read whole rows.  The reference stores ``[row, col, disp]``
+(`AD-CensusV1/AD-Census.h:87`).
 
 Border semantics: the reference copies the previous-d cost when the match
 column underflows (`SAD/Sad.h:125-128`, `AD-Census.h:88-92`).  Recursively
@@ -23,9 +23,9 @@ import jax.numpy as jnp
 
 INVALID = jnp.inf
 
-# Same on-chip fast-source cliff as aggregate._GATHER_FAST_SRC_BYTES, with
-# headroom: above this the border_fill axis-0 gather leaves the fast regime
-# and the diagonal-pick + select path wins.
+# Above this volume size border_fill switches from the axis-0 gather to the
+# diagonal-pick + select path (chosen on an earlier accelerator, alongside
+# aggregate._GATHER_FAST_SRC_BYTES; ROADMAP design item 3).
 _BORDER_FILL_GATHER_MAX_BYTES = 200 * 1024 * 1024
 
 
@@ -71,12 +71,11 @@ def border_fill(vol: jax.Array, view: str = "left") -> jax.Array:
     left view and ``min(d, W-1-j)`` for the right view.
 
     Two regimes: small volumes use a plain axis-0 gather, which XLA fuses
-    into the consumer (effectively free); big volumes (above
-    ``_BORDER_FILL_GATHER_MAX_BYTES``, where the gather is scalar-core
-    bound — 22 ms at a [256, 346, 3840] 4K band) use the fact that only
-    the ``D-1`` edge columns can differ from the input, and the filled
-    value there is always the diagonal ``vol[limit, i, j]``: one tiny
-    [k, H] diagonal pick plus a single elementwise select.
+    into the consumer; big volumes (above ``_BORDER_FILL_GATHER_MAX_BYTES``)
+    use the fact that only the ``D-1`` edge columns can differ from the
+    input, and the filled value there is always the diagonal
+    ``vol[limit, i, j]``: one tiny [k, H] diagonal pick plus a single
+    elementwise select.
     """
     d, h, w = vol.shape
     k = min(d - 1, w)
@@ -94,9 +93,7 @@ def border_fill(vol: jax.Array, view: str = "left") -> jax.Array:
     jj = jnp.arange(k)
     # min(d, limit) is d inside the valid wedge and the *diagonal*
     # vol[limit, i, j] everywhere else — one tiny [k, H] diagonal pick +
-    # a single elementwise select (the axis-0 gather over a big volume is
-    # scalar-core-bound: 22 ms at a [256, 346, 3840] 4K band, vs one
-    # volume traversal here).
+    # a single elementwise select (one volume traversal).
     if view == "left":
         diag = vol[jj, :, jj]                          # [k, H]: vol[j, :, j]
         dfull = jnp.pad(diag.T, ((0, 0), (0, w - k)))  # [H, W]; pad unused
@@ -126,7 +123,7 @@ def right_volume_from_left(vol_left: jax.Array) -> jax.Array:
     :func:`border_fill(view="right")` applied to the shifted volume.
 
     This replaces a second full cost-volume construction (for ASW, a second
-    78 ms Pallas kernel run) with one gather.
+    kernel run) with one gather.
     """
     d, _, w = vol_left.shape
     cols = jnp.arange(w)[None, :]
@@ -137,13 +134,13 @@ def right_volume_from_left(vol_left: jax.Array) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# MXU box sums
+# box sums as banded matmuls
 # ---------------------------------------------------------------------------
 
 
 def _band_matrix(n_in: int, n_out: int, radius: int, dtype=jnp.float32) -> jax.Array:
     """0/1 banded matrix B ``[n_in, n_out]`` with ``B[p, i] = 1`` iff
-    ``i <= p <= i + 2*radius`` — a window sum as a matmul (runs on the MXU)."""
+    ``i <= p <= i + 2*radius`` — a window sum as a matmul."""
     p = jax.lax.broadcasted_iota(jnp.int32, (n_in, n_out), 0)
     i = jax.lax.broadcasted_iota(jnp.int32, (n_in, n_out), 1)
     return ((p >= i) & (p <= i + 2 * radius)).astype(dtype)
@@ -153,20 +150,20 @@ def box_sum_valid(x: jax.Array, radius_r: int, radius_c: int) -> jax.Array:
     """Sum over (2rr+1)x(2rc+1) windows, 'valid' mode.
 
     ``x`` is ``[..., Hp, Wp]`` (already padded); output is
-    ``[..., Hp-2rr, Wp-2rc]``.  Implemented as two banded matmuls so the
-    reduction runs on the MXU instead of scalar window loops
+    ``[..., Hp-2rr, Wp-2rc]``.  Implemented as two banded matmuls instead
+    of scalar window loops
     (`SAD/Sad.h:15-20` does this per-pixel with OpenCV Mat slicing).
     """
     hp, wp = x.shape[-2], x.shape[-1]
     h, w = hp - 2 * radius_r, wp - 2 * radius_c
     br = _band_matrix(hp, h, radius_r, x.dtype)
     bc = _band_matrix(wp, w, radius_c, x.dtype)
-    # precision HIGHEST: the default TPU matmul truncates f32 operands to
-    # bf16 — the band side is exact 0/1, but NCC's squared-intensity
-    # operands (<=16384) and even the first pass's row sums are not bf16
-    # representable (measured max abs error 656 on a Teddy-sized
-    # box_sum(lf^2), where ncc_volume's degenerate-window mask assumes
-    # exact-f32 error < 0.5).  Matches every other MXU matmul here.
+    # precision HIGHEST: a default-precision float32 matmul may round its
+    # operands to TF32 or bf16 — the band side is exact 0/1, but NCC's
+    # squared-intensity operands (<=16384) and even the first pass's row
+    # sums are not representable there, while ncc_volume's
+    # degenerate-window mask assumes exact-f32 error < 0.5.  Matches every
+    # other matmul here.
     hi = jax.lax.Precision.HIGHEST
     t = jnp.einsum(
         "ph,...pq->...hq", br, x, preferred_element_type=jnp.float32, precision=hi
@@ -608,7 +605,7 @@ def asw_volume(
 
     This is the jnp reference implementation: a `lax.scan` over the
     (2R+1)^2 window offsets with fully vectorized [D, H, W] work per step.
-    The Pallas kernel in ``ops.kernels.asw_pallas`` is the fast path.
+    The Pallas kernel in ``ops.kernels.asw_pallas`` is the GPU path.
 
     Inputs are unpadded uint8/float grayscale; replicate padding (radius+? )
     matches `ASW/ASWeight.cpp:54-55` (pad = win_size + 1 = radius).
@@ -686,7 +683,7 @@ def asw_volume_right(
 def _gauss_band_matrix(n: int, radius: int, sigma: float) -> jax.Array:
     """Banded Gaussian matrix ``G[q, p] = exp(-(q-p)^2 / 2 sigma^2)`` for
     ``|q - p| <= radius``, 0 outside — a truncated 1-D Gaussian blur as an
-    MXU matmul.  Two of these factor the exact 2-D ASW space mask
+    matmul.  Two of these factor the exact 2-D ASW space mask
     (`getGausssianMask` `ASW/ASW.h:16-35` is separable)."""
     i = jnp.arange(n)
     dqp = (i[:, None] - i[None, :]).astype(jnp.float32)
@@ -711,7 +708,7 @@ def asw_volume_approx_grid(
     bilateral trade, opt-in through ``ASWConfig(approx='grid')``.
 
     ``row_offset``/``global_rows`` make the truncated-Gaussian row blur
-    global-boundary-aware on a halo-extended row tile (VERDICT r3 item 7):
+    global-boundary-aware on a halo-extended row tile:
     the full-image blur implicitly contributes *nothing* outside the
     image, so extended rows whose global coordinate falls outside
     ``[0, global_rows)`` (edge-replicated halo padding) are zeroed out of
@@ -719,23 +716,22 @@ def asw_volume_approx_grid(
     halo then reproduces the untiled blur exactly (up to matmul reduction
     order over the shorter row axis).
 
-    **Non-parity by design** (VERDICT r2 item 6): the exact kernel's cost
-    is ``sum_o wL(p,o) wR(p-d,o) e / sum w`` with ~10 VPU ops per
-    (pixel, offset, d) — measured at its VPU floor (~76 ms/volume at
-    Teddy, `ops/kernels/asw_pallas.py`).  This path approximates it with
+    **Non-parity by design**: the exact cost is
+    ``sum_o wL(p,o) wR(p-d,o) e / sum w`` with ~10 operations per
+    (pixel, offset, d) (`ops/kernels/asw_pallas.py`).  This path
+    approximates it with
 
         J_b(p) = blur(k_b * e_d)(p) / blur(k_b)(p),
         cost(p, d) = interp_b J_b  at  I_L(p),
 
     where ``k_b = exp(-(I_L - c_b)^2 / 2 sigma_c^2)`` over ``bins``
     intensity centers, ``blur`` is the exact truncated-Gaussian space mask
-    as two banded MXU matmuls, and the output linearly interpolates the
+    as two banded matmuls, and the output linearly interpolates the
     two nearest bins (hat weights — a partition of unity).  Two
     approximations vs the reference (`ASW/ASW.h:210-257`): the *right*
     window weight ``wR`` is dropped (single-guidance grid), and the color
     weight is evaluated at ``bins`` quantized centers instead of per
-    pixel.  The bad-2.0 delta on the synthetic suite is recorded in
-    BASELINE.md; use the default exact path for reference parity.
+    pixel.  Use the default exact path for reference parity.
     """
     if bins < 2:
         raise ValueError(

@@ -2,7 +2,7 @@
 
 Aggregation windows (<=25 px ASW, <=34 px arms x passes, 4 px census rows)
 need boundary overlap between adjacent row tiles (SURVEY.md §2.6 item 4);
-this is the `ppermute` neighbor exchange over ICI that replaces the
+this is the `ppermute` neighbor exchange between devices that replaces the
 reference's shared-memory window reads (`SAD/Sad.h:15-20` et al.).
 
 The halo may exceed the tile height (e.g. CBLSM's two aggregation passes

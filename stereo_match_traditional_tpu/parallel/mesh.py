@@ -1,14 +1,18 @@
 """Device mesh construction.
 
 The reference's only parallelism is (racy) OpenMP loop pragmas
-(SURVEY.md §2.6); the TPU-native replacements are:
+(SURVEY.md §2.6); the engine's device-parallel replacements are:
 
 * tile-DP: image rows sharded over the ``tile`` mesh axis (`shard_map`
   + halo exchange, `parallel.tiled`);
 * disparity parallelism (the TP analogue): the D axis sharded over the
   ``disp`` axis with a two-stage WTA (`parallel.wta_shard`);
-* sequence parallelism (the CP analogue): scanline carries handed
-  tile-to-tile over ICI (`parallel.scan_carry`).
+* sequence parallelism (the CP analogue): the scanline resharded
+  between row and column tiles with all_to_all (`parallel.scan_carry`).
+
+The mesh is a flat device list reshaped to the algorithm's axes: the
+cards of a host reach each other all to all, so no axis order is
+preferred.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Row-sharded post-processing (VERDICT r1 item 6; SURVEY.md §5
+"""Row-sharded post-processing (SURVEY.md §5
 "long-context / sequence parallelism").
 
 `tiled_pipeline` historically gathered full disparity maps and ran L4

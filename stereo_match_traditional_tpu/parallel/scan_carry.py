@@ -8,7 +8,8 @@ two *vertical* passes would serialize across tiles.  Instead of handing
 scan carries around a `ppermute` ring (which serializes the slice), the
 volume is resharded with one `all_to_all` so each device owns whole
 *columns*, the vertical passes run fully parallel over full-height columns,
-and a second `all_to_all` restores row tiling.  Both reshards ride ICI; the
+and a second `all_to_all` restores row tiling.  Both reshards are single
+collectives between devices; the
 math is identical to the unsharded scan — no carry approximation.
 """
 
@@ -88,8 +89,7 @@ def scanline_canonical_sharded(
 ) -> jax.Array:
     """Canonical tso-scheduled 4-path scanline on a row-sharded volume
     (`ops.scanline.scanline_optimize_canonical` under shard_map — the
-    cross_two_pass / ADCensusOption family on the explicit-halo executor,
-    VERDICT r2 item 3).
+    cross_two_pass / ADCensusOption family on the explicit-halo executor).
 
     Same reshard strategy as :func:`scanline_optimize_sharded`: horizontal
     passes are row-local; for the vertical passes the volume AND the

@@ -102,11 +102,11 @@ def rgb_to_lab_u8(img: np.ndarray) -> np.ndarray:
     by the D65 white point), a cube-root LUT at ``1 << 15``, and
     descale-with-rounding for L/a/b — so the Lab codes the reference's
     color weights consume differ by up to ~2 codes from the float
-    formula.  This function reproduces that arithmetic exactly (VERDICT
-    r2 item 8; OpenCV itself is not installable in the build container,
-    so parity is asserted structurally + against the float formula within
-    quantization tolerance in tests/test_io_gt.py).  The float formula
-    remains available as :func:`rgb_to_lab_u8_float`.
+    formula.  This function reproduces that arithmetic exactly (OpenCV
+    itself is not a dependency, so parity is asserted structurally +
+    against the float formula within quantization tolerance in
+    tests/test_io_gt.py).  The float formula remains available as
+    :func:`rgb_to_lab_u8_float`.
     """
     global _LAB_TABS
     if _LAB_TABS is None:
@@ -223,7 +223,7 @@ def write_pfm(path: str, data: np.ndarray, scale: float = 1.0) -> None:
     h, w = img.shape[:2]
     # repr-style scale token: b"%f" renders 6 decimals, so a valid tiny
     # scale (1e-7) would be written as '-0.000000' and rejected by
-    # read_pfm's own scale==0 check (ADVICE r2).
+    # read_pfm's own scale==0 check.
     scale_tok = repr(-float(scale)).encode("ascii")
     with open(path, "wb") as f:
         f.write(magic + b"\n%d %d\n" % (w, h) + scale_tok + b"\n")
@@ -246,7 +246,7 @@ def read_gt_disparity(path: str, scale: float = None) -> np.ndarray:
     integer images — and prints the assumption to stderr, because other
     datasets use other factors (Middlebury 2001 scale 8, Tsukuba 16,
     KITTI uint16 scale 256) and a silently wrong default yields
-    plausible-looking but wrong bad-pixel rates (ADVICE r2).  Pass an
+    plausible-looking but wrong bad-pixel rates.  Pass an
     explicit ``scale`` (CLI: ``--gt-scale``) to silence it.
     """
     if scale is None:

@@ -22,7 +22,7 @@ class StageTimer:
 
     Wall times include dispatch only unless the stage materializes (see
     utils.benchmark for honest device timing); this is for coarse host-side
-    observability, mirroring BASELINE.md's structured-timing requirement.
+    observability.
     """
 
     def __init__(self) -> None:

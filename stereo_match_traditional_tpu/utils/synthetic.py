@@ -5,7 +5,7 @@ names, `SAD/SADmain.cpp:27-28`).  This environment has no network, so tests
 and benchmarks generate procedural pairs: a smooth random texture warped by a
 piecewise-smooth disparity field, with left-edge occlusion handled by
 replicate sampling.  ``bad-2.0`` against the returned ground truth is the
-accuracy metric (BASELINE.md).
+accuracy metric.
 """
 
 from __future__ import annotations
@@ -50,8 +50,8 @@ def make_pair(
     a foreground box, so WTA pipelines can recover it near-exactly.
 
     ``feature_scale``: pixel size of the disparity field's smooth features.
-    The default 24 keeps every historical BASELINE.md row comparable, but
-    note its slope consequence (measured round 5): the ramp's amplitude is
+    The default 24 keeps earlier results comparable, but note its slope
+    consequence: the ramp's amplitude is
     ``0.45 * max_disp`` over fixed 24-px features, so local |grad GT|
     scales with ``max_disp`` — at D=256, 24% of pixels exceed 1 d/px,
     which no local window matcher resolves within the fixed bad-2.0

@@ -4,7 +4,7 @@ Every other test pixel in this repo is procedural (the reference ships no
 images — `SAD/SADmain.cpp:27-28` hard-codes files not in its repo, and
 this container has no network).  This pair warps a REAL photograph so
 real-texture pathologies — sensor noise, saturated/near-uniform regions,
-JPEG artifacts — exercise the matchers (VERDICT r2 "what's weak" item 5).
+JPEG artifacts — exercise the matchers.
 
 Source texture: matplotlib's bundled ``grace_hopper.jpg`` — the official
 U.S. Navy portrait of RADM Grace Hopper, a U.S. federal government work
@@ -28,7 +28,7 @@ from stereo_match_traditional_tpu.utils import io as io_utils
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 H, W, D = 128, 192, 24
-# serving-range pair (VERDICT r3 item 8): D >= 64 with real texture
+# serving-range pair: D >= 64 with real texture
 H64, W64, D64 = 192, 256, 64
 
 

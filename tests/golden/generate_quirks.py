@@ -4,7 +4,7 @@ Run from the repo root after a *deliberate* behavior change:
 
     python tests/golden/generate_quirks.py
 
-Each case freezes one catalogued reference quirk flag (VERDICT r1 item 8)
+Each case freezes one catalogued reference quirk flag
 so a regression in a non-default path trips the golden net, not just the
 unit tests.
 """

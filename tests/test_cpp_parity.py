@@ -1,12 +1,11 @@
-"""End-to-end cross-implementation parity (VERDICT r1 item 2).
+"""End-to-end cross-implementation parity.
 
 The framework's five ACTIVE pipelines vs `native/cpu_baseline/
 parity_baseline.cpp` — an independent, loop-structured C++ implementation
 of the same intended semantics (SURVEY.md §2).  Both consume the identical
 synthetic pair (dumped to raw files), and the disparity maps must agree on
->= 99% of pixels — the measured form of BASELINE.md's "bad-pixel delta
-<= 1%" accuracy north star (real Teddy images are unobtainable here; the
-reference ships none).
+>= 99% of pixels — the "bad-pixel delta <= 1%" accuracy target, measured
+(real Teddy images are not available offline; the reference ships none).
 
 Float summation orders differ between the two implementations (banded
 matmuls / SATs vs sequential loops), so exact cost ties can flip an
@@ -121,7 +120,7 @@ def test_framework_matches_cpp(binary, pair_files, name, cfg, fields):
 @pytest.mark.slow
 @pytest.mark.parametrize("da", [False, True], ids=["canonical", "canonical_da"])
 def test_framework_matches_cpp_canonical(binary, pair_files, da):
-    """Canonical-family cross-implementation parity (VERDICT r4 item 3):
+    """Canonical-family cross-implementation parity:
     canonical arms (t1/t2/L1/L2) -> iterative two-pass cross aggregation
     with support counts -> tso-scheduled 4-path scanline on both volumes
     -> dual WTA -> canonical post (rounded LR check, iterative region
@@ -154,7 +153,7 @@ def test_framework_matches_cpp_canonical(binary, pair_files, da):
 
 def test_cpp_baseline_accuracy_close_to_framework(binary, pair_files):
     """bad-2.0 vs ground truth must agree within 1 point on the flagship —
-    the BASELINE.md accuracy target measured, not argued."""
+    the accuracy target measured, not argued."""
     from stereo_match_traditional_tpu.utils.synthetic import bad_pixel_rate
 
     L, R, gt, lp, rp, outdir = pair_files

@@ -1,7 +1,8 @@
-"""Two-process DCN validation (VERDICT r1 item 4; SURVEY.md §5).
+"""Two-process validation (SURVEY.md §5).
 
 The reference is a single-process program (`SAD/SAD.vcxproj` OpenMP only);
-the engine's multi-host leg is `jax.distributed` + collectives over DCN.
+the engine's multi-process leg is `jax.distributed` + cross-process
+collectives.
 This test executes that leg for real: two OS processes, a localhost
 coordinator, 4 virtual CPU devices each, and a tiled pipeline whose row
 tiles span the process boundary — asserting the result equals the
@@ -51,7 +52,7 @@ def test_two_process_tiled_pipeline_matches_single_process():
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
-        pytest.fail("DCN workers timed out:\n" + "\n---\n".join(outs))
+        pytest.fail("workers timed out:\n" + "\n---\n".join(outs))
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out}"
         assert f"DCN-OK rank={rank}" in out, out

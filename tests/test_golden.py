@@ -64,7 +64,7 @@ def test_pipeline_matches_golden(name, golden):
 
 
 # --------------------------------------------------------------------------
-# Quirk-flag goldens (VERDICT r1 item 8): every catalogued reference quirk
+# Quirk-flag goldens: every catalogued reference quirk
 # flag gets its own frozen output so a regression in a non-default path
 # trips the golden net.  Regenerate: python tests/golden/generate_quirks.py
 # --------------------------------------------------------------------------

@@ -284,7 +284,7 @@ def test_lab_u8_fixed_point_matches_float_within_quantization():
     dense RGB lattice — and differ somewhere (proving it reproduces the
     integer pipeline, not the float one).  OpenCV itself is not
     installable in this container; this tolerance plus the primary-color
-    table below is the verification available (VERDICT r2 item 8)."""
+    table below is the verification available."""
     g = np.arange(0, 256, 5, dtype=np.uint8)
     lattice = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1)
     lattice = lattice.reshape(1, -1, 3)

@@ -1,5 +1,5 @@
-"""Per-stage observability + stage checkpoints (VERDICT r1 item 7;
-SURVEY.md §5 rows "Tracing/profiling" and "Checkpoint/resume")."""
+"""Per-stage observability + stage checkpoints (SURVEY.md §5 rows
+"Tracing/profiling" and "Checkpoint/resume")."""
 
 import json
 import subprocess
@@ -84,7 +84,7 @@ def test_stage_checkpoint_roundtrip(tmp_path):
 @pytest.mark.slow
 def test_cli_save_stages_includes_volumes(tmp_path):
     """`stereo run --save-stages` must persist the aggregated volume
-    (the VERDICT 'done' criterion for item 7)."""
+    (the stage re-entry surface needs it)."""
     out = subprocess.run(
         [
             sys.executable, "-m", "stereo_match_traditional_tpu.cli", "--cpu",

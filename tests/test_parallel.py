@@ -243,7 +243,7 @@ def test_tiled_ad_census_with_scanline_and_post():
 @pytest.mark.parametrize("da", [False, True])
 def test_tiled_canonical_scanline_and_post(da):
     """The canonical (ADCensusOption) family on the explicit-halo executor
-    (VERDICT r2 item 3): cross_two_pass aggregation + tso-scheduled
+   : cross_two_pass aggregation + tso-scheduled
     scanline on BOTH volumes (sharded via the all_to_all column reshard)
     + the canonical post (LR at lrcheck_thres, region voting, optional
     row-local discontinuity adjustment on the tile-sharded volume, median)
@@ -277,7 +277,7 @@ def test_tiled_canonical_scanline_and_post(da):
         ("cblsm", cfgs.CBLSMConfig(disp_range=10, aggregation="rect_mean_v4"), False),
         ("cblsm", cfgs.CBLSMConfig(disp_range=10, cost="local_mean",
                                    aggregation="cross_two_pass"), False),
-        # round-4 (VERDICT r3 item 7): the opt-in ASW grid approximation
+        # round-4: the opt-in ASW grid approximation
         # tiles exactly — the truncated-Gaussian row blur is
         # global-boundary-aware, so edge-replicated halo rows outside the
         # image are zeroed out of the blur like the untiled blur's
@@ -287,10 +287,9 @@ def test_tiled_canonical_scanline_and_post(da):
     ],
 )
 def test_tiled_variant_matches_untiled(name, cfg, color):
-    """Round 3 closes VERDICT r2 weak item 3: the dormant reference
-    variants (ncc 'shifted', every cblsm cost/aggregation) run on the
-    explicit-halo executor with variant-aware halos, equal to the direct
-    pipeline."""
+    """The dormant reference variants (ncc 'shifted', every cblsm
+    cost/aggregation) run on the explicit-halo executor with
+    variant-aware halos, equal to the direct pipeline."""
     L, R, _ = make_pair(37, 48, 10, seed=6, color=color)
     fn, _ = get_pipeline(name)
     want = fn(jnp.asarray(L), jnp.asarray(R), cfg)
@@ -434,8 +433,7 @@ def test_distributed_helpers_single_process():
 @pytest.mark.slow
 def test_ncc_tile_disp_2d_mesh():
     """NCC rows x disparity 2-D mesh equals the single-device pipeline
-    (VERDICT r1 item 5: NCC's D=200 axis is the one that most wants
-    disparity sharding)."""
+    (NCC's D=200 axis is the one that most wants disparity sharding)."""
     from stereo_match_traditional_tpu.parallel.tiled import ncc_tile_disp
 
     cfg = cfgs.NCCConfig(disp_range=16, win_size=3)

@@ -1,6 +1,6 @@
 """End-to-end pipeline tests: golden accuracy on synthetic pairs.
 
-The reference publishes no outputs (BASELINE.md), so the golden standard is
+The reference publishes no outputs, so the golden standard is
 (a) oracle equality at the kernel level (other test files) and (b) bad-2.0
 accuracy against synthetic ground truth here.
 """
@@ -111,8 +111,8 @@ def test_pipelines_deterministic(small_pair):
 def test_asw_approx_grid_close_to_exact(small_pair):
     """Opt-in approx='grid' (intensity-binned bilateral grid) must stay
     within a small bad-2.0 delta of the exact kernel on the synthetic
-    pair — and the exact path must remain the default (VERDICT r2 item 6:
-    clearly-flagged non-parity trade)."""
+    pair — and the exact path must remain the default (a clearly-flagged
+    non-parity trade)."""
     L, R, gt = small_pair
     exact = jax.jit(
         lambda l, r: asw_pipeline(l, r, ASWConfig(disp_range=14, win_size=3,

@@ -69,7 +69,7 @@ def test_shard_post_unsupported_pipeline_raises():
 
 
 def test_sad_shard_post_exact_with_ray_cap():
-    """VERDICT r3 item 5: with the opt-in fill_max_search cap the sharded
+    """With the opt-in fill_max_search cap the sharded
     SAD post (LR classes -> background-seeded speckles -> capped 8-dir fill
     -> truncate median) is bit-equal to the gathered chain."""
     left, right, _ = make_pair(96, 70, 12, seed=14)
@@ -170,7 +170,7 @@ def test_finish_from_volumes_canonical_post_needs_arms():
 
 def test_finish_from_volumes_canonical_roundtrip():
     """Canonical (cross_two_pass + run_post) stage re-entry == the direct
-    run bit-for-bit, from the saved volumes + arm maps (VERDICT r2 item 7)."""
+    run bit-for-bit, from the saved volumes + arm maps."""
     import jax.numpy as jnp
     import numpy as np
 

@@ -4,8 +4,8 @@ Until now every test pixel was procedural; these pairs warp matplotlib's
 bundled public-domain Grace Hopper portrait (see
 tests/data/generate_real_pair.py) so real-texture pathologies — sensor
 noise, JPEG artifacts, saturated/near-uniform regions — reach the
-matchers (VERDICT r2 "what's weak" item 5).  Budgets are ~1.2x the
-measured rates (VERDICT r3 item 8; regression tripwires AND honest
+matchers.  Budgets are ~1.2x the
+measured rates (regression tripwires AND honest
 accuracy claims): at D=24 sad 0.0693, ad_census 0.0685, cblsm 0.0711,
 asw 0.0519, ncc 0.1753 (NCC's includes its excluded interior border
 counting as bad, `NCC.h:72-75`); at the serving-range D=64 pair
@@ -88,7 +88,7 @@ def real_pair_64():
     ],
 )
 def test_real_texture_accuracy_serving_range(real_pair_64, name, cfg, budget):
-    """Serving-range (D=64) real-texture accuracy (VERDICT r3 item 8) —
+    """Serving-range (D=64) real-texture accuracy —
     budgets ~1.2x the measured rates in the module docstring."""
     L, R, gt = real_pair_64
     fn, _ = get_pipeline(name)

@@ -39,7 +39,7 @@ def test_faithful_vertical_quirk():
 
 
 def test_penalty_scale_parity_and_effect():
-    """Opt-in penalty scaling (VERDICT r3 item 2): scale=1.0 and 'auto' at
+    """Opt-in penalty scaling: scale=1.0 and 'auto' at
     the reference's D=60 calibration point are bit-identical to the parity
     default; an explicit scale equals scaling p1/p2 directly."""
     cost, gray = _case(seed=3, d=6)

@@ -67,7 +67,7 @@ def test_streamed_matches_untiled(name, cfg, exact):
 def test_streamed_scanline_matches_untiled(scan_cfg):
     """FULL flagship (scanline + post) streams over row bands: the vertical
     band-carry continuation is bit-identical to the monolithic pass, so
-    streamed == direct outside the clamp triangle (VERDICT r2 item 2).
+    streamed == direct outside the clamp triangle.
     Rows are a non-multiple of the band size, exercising the padded-tail
     path-start reset of the bottom-up pass."""
     d = 8
@@ -127,7 +127,7 @@ def test_streamed_variants_match_untiled():
     assert _mismatch(got.disp_left, want.disp_left, 10) <= 5e-3
 
     # round-4: the ASW grid approximation streams (global-boundary-aware
-    # truncated-Gaussian blurs, VERDICT r3 item 7)
+    # truncated-Gaussian blurs)
     cfg = cfgs.ASWConfig(disp_range=10, win_size=2, approx="grid",
                          approx_bins=6, run_post=False)
     want = fa(jnp.asarray(L), jnp.asarray(R), cfg)
@@ -136,12 +136,12 @@ def test_streamed_variants_match_untiled():
 
 
 def test_auto_row_tile_matches_recorded_sweeps():
-    """row_tile=None derives the band from the live-buffer model
-    (VERDICT r3 item 6), anchored on the round-3 4K/D=256 sweep
-    (BASELINE.md): rt=432 was the swept optimum, rt>=540 failed to
-    compile.  The model must land within 10% of the optimum and below
-    the compile boundary on a 16 GB part; at 720p everything fits, so
-    the pick degenerates to a single band."""
+    """row_tile=None derives the band from the live-buffer model,
+    anchored on a recorded 4K/D=256 compile sweep of a 16 GB part:
+    rt=432 was the swept optimum, rt>=540 failed to compile.  The model
+    must land within 10% of the optimum and below the compile boundary
+    on a 16 GB part; at 720p everything fits, so the pick degenerates to
+    a single band."""
     from stereo_match_traditional_tpu.parallel.streamed import auto_row_tile
 
     mem = 16 * 2**30
@@ -179,7 +179,7 @@ def test_auto_row_tile_matches_recorded_sweeps():
 
 @pytest.mark.parametrize("da", [False, pytest.param(True, marks=pytest.mark.slow)])
 def test_streamed_canonical_matches_untiled(da):
-    """The canonical (ADCensusOption) family streams (VERDICT r3 item 1):
+    """The canonical (ADCensusOption) family streams:
     cross_two_pass aggregation + tso-scheduled scanline on BOTH volumes
     (band-carried vertical continuations) + the canonical post on the
     gathered maps — with the optional discontinuity adjustment as a third
